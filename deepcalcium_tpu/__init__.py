@@ -1,10 +1,10 @@
-"""deepcalcium-tpu: a TPU-native calcium-imaging segmentation framework.
+"""deepcalcium-tpu: a JAX calcium-imaging segmentation framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
-``alexklibisz/deep-calcium`` (Keras/TF, single GPU), redesigned for TPU:
+A ground-up JAX/XLA rebuild of the capabilities of
+``alexklibisz/deep-calcium`` (Keras/TF, single GPU), run on NVIDIA GPUs:
 
 - Dense math (U-Net forward/backward, test-time augmentation, summary-image
-  reductions, metric reductions) runs on device under ``jax.jit`` / Pallas.
+  reductions, metric reductions) runs on device under ``jax.jit``.
 - Scale-out is expressed with ``jax.sharding.Mesh`` + NamedSharding (GSPMD),
   not host loops: data-parallel training, TTA-sharded evaluation, and
   time-axis-sharded movie reduction all ride the same mesh.

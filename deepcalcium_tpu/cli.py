@@ -51,8 +51,8 @@ def cmd_convert(args):
 
 
 # float32 = Keras-parity numerics (wrapper default); bfloat16 = the
-# benchmarked fast configuration (~2x MXU rate, threshold-level-identical
-# masks — bench.py measures this one).
+# benchmarked fast configuration (tensor-core bf16 convs,
+# threshold-level-identical masks — bench.py measures this one).
 _DTYPES = {"float32": None, "bfloat16": "bfloat16"}
 
 
@@ -73,7 +73,7 @@ def cmd_train(args):
                          f"disk-bound dataset summaries")
     dspaths = nf_load_hdf5(args.dataset_name)
     shape_trn = (args.window, args.window)
-    # 512²-window training recommends remat (2x faster + fits HBM; see
+    # 512²-window training defaults to remat (it bounds activation memory;
     # docs/VALIDATION.md); honor an explicit flag either way.
     remat = args.remat if args.remat is not None else args.window >= 256
     model = UNet2DSummary(cpdir=_neurons_cpdir(args.checkpoints_dir),
@@ -137,8 +137,8 @@ def cmd_parity_golden(args):
 
     Exit 0 = every score within --tol of expected; exit 1 otherwise. The
     de-facto regression test of the reference (SURVEY section 4) as one
-    invocation, pre-staged for the moment network egress exists
-    (VERDICT r3 missing #2). ``--paths``/``--model_path``/``--expect-*``
+    invocation, pre-staged for the moment network egress exists.
+    ``--paths``/``--model_path``/``--expect-*``
     let an offline test (or a different corpus) drive the same glue.
     """
     import numpy as np
@@ -323,7 +323,7 @@ def cmd_segment(args):
 
 def build_parser():
     ap = argparse.ArgumentParser(
-        prog="dc-tpu", description="TPU-native deep-calcium CLI.")
+        prog="dc-tpu", description="deep-calcium CLI (JAX).")
     sp = ap.add_subparsers(title="actions", required=True)
 
     p = sp.add_parser("train", help="Train UNet2DS on Neurofinder datasets.")
@@ -347,19 +347,20 @@ def build_parser():
                    choices=["plateau", "cosine"])
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="fold K training steps into one lax.scan dispatch "
-                        "(cuts per-step dispatch latency ~2x on thin links; "
-                        "must divide --steps)")
+                        "(amortizes per-step host dispatch; must divide "
+                        "--steps)")
     p.add_argument("--fast-train", default="auto",
                    choices=["auto", "on", "off"],
-                   help="W-packed gradient step (1.21x; score-equivalent, "
-                        "different dropout draw order than the parity path)")
+                   help="'on' = W-packed gradient step (score-equivalent, "
+                        "different dropout draw order; slower than the "
+                        "plain step on the H100, which 'auto' keeps)")
     p.add_argument("--weight-decay", type=float, default=0.0,
                    help="AdamW decoupled weight decay on conv kernels "
                         "(the reference search's L2 axis)")
     p.add_argument("--prng-impl", default="threefry2x32",
                    choices=["threefry2x32", "rbg"],
-                   help="dropout PRNG ('rbg': -17%% step time, different "
-                        "random stream than the Keras-faithful default)")
+                   help="dropout PRNG ('rbg' draws a different random "
+                        "stream than the Keras-faithful default)")
     p.add_argument("--ema-decay", type=float, default=None,
                    help="exponential moving average of params for eval")
     p.add_argument("--remat", action=argparse.BooleanOptionalAction,
@@ -368,10 +369,9 @@ def build_parser():
                         "(default: on for window >= 256)")
     p.add_argument("--preset", default=None, choices=["parity", "perf"],
                    help="recipe bundle: 'parity' = Keras-faithful defaults; "
-                        "'perf' = measured throughput config (rbg PRNG + "
-                        "K=4 scan dispatch, ~16%% vs 13.6%% train MFU; "
-                        "overrides --prng-impl/--steps-per-dispatch, logs "
-                        "the deviation)")
+                        "'perf' = measured throughput config (K=4 scan "
+                        "dispatch where it divides --steps; overrides "
+                        "--steps-per-dispatch)")
     p.set_defaults(func=cmd_train)
 
     p = sp.add_parser("evaluate", help="Evaluate with and without TTA.")
@@ -447,10 +447,8 @@ def build_parser():
                    choices=["threefry2x32", "rbg"],
                    help="dropout PRNG (unet1d only)")
     p.add_argument("--preset", default=None, choices=["parity", "perf"],
-                   help="recipe bundle (unet1d only): 'perf' = rbg dropout "
-                        "PRNG + auto K-step dispatch (-15%% device step, "
-                        "round-5 A/B); overrides --prng-impl/"
-                        "--steps-per-dispatch")
+                   help="recipe bundle (unet1d only): 'perf' = auto K-step "
+                        "dispatch; overrides --steps-per-dispatch")
     p.set_defaults(func=cmd_spikes_train)
 
     p = sp.add_parser("spikes-predict", help="Predict spikes on datasets.")
@@ -499,6 +497,9 @@ def build_parser():
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
+    from deepcalcium_tpu.utils.benchtools import enable_compile_cache
+
+    enable_compile_cache()
     args.func(args)
 
 

@@ -20,7 +20,6 @@ import logging
 import os
 from glob import glob
 
-import h5py
 import numpy as np
 
 from deepcalcium_tpu.utils.runtime import funcname
@@ -72,6 +71,8 @@ def make_dataset_from_tiffs(name: str, tiffglob: str, dataset_path: str,
     h, w = read_tiff(paths[0]).shape
 
     tmp = dataset_path + ".tmp"
+    import h5py
+
     with h5py.File(tmp, "w") as fp:
         fp.attrs["name"] = name
         write_series(fp, paths, (h, w), chunk)

@@ -25,7 +25,6 @@ import shutil
 import zipfile
 from glob import glob
 
-import h5py
 import numpy as np
 
 from deepcalcium_tpu.metrics.neurofinder import label_mask, nf_mask_metrics  # noqa: F401 (re-export)
@@ -123,6 +122,8 @@ def ingest_tiff_dataset(ds_dir: str, ds_path: str, name: str,
     i_shape = read_tiff(s_paths[0]).shape
 
     tmp_path = ds_path + ".tmp"
+    import h5py
+
     with h5py.File(tmp_path, "w") as dsf:
         dsf.attrs["name"] = name
         write_series(dsf, s_paths, i_shape, chunk)

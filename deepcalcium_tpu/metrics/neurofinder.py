@@ -25,7 +25,7 @@ all-ones structure to match.
 
 Host-side by design: labeling and greedy matching are irregular, tiny
 (hundreds of regions), and run once per image — the dense work (the network
-forward producing the masks) stays on TPU.
+forward producing the masks) stays on the device.
 """
 
 import numpy as np

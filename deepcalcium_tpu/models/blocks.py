@@ -11,12 +11,12 @@ released Keras checkpoints can be imported weight-for-weight:
   (transpose-up blocks); training normalizes by biased batch stats and
   updates ``moving = momentum * moving + (1 - momentum) * batch``.
 - Conv2DTranspose(k=2, s=2, VALID): each input pixel emits a 2x2 output
-  block — implemented as one einsum + reshape (a pure MXU matmul) instead of
-  a gradient-of-conv, which is both exact and faster on TPU.
+  block — implemented as one einsum + reshape (a pure matmul) instead of
+  a gradient-of-conv, which is exact.
 - Dropout: inverted scaling, train-only.
 
-Compute dtype is a parameter: convolutions can run in bfloat16 on the MXU
-while params and BN statistics stay float32.
+Compute dtype is a parameter: convolutions can run in bfloat16 on the
+tensor cores while params and BN statistics stay float32.
 """
 
 import functools
@@ -120,8 +120,8 @@ def conv2d(x, p, dtype=None, precision=None):
     """SAME conv, NHWC x HWIO -> NHWC.
 
     ``dtype``: compute dtype (e.g. bfloat16). When set, inputs/kernel/bias
-    are cast and the conv output stays in that dtype — the TPU MXU still
-    accumulates partial products in float32 internally; BN recomputes
+    are cast and the conv output stays in that dtype — the matrix units
+    still accumulate partial products in float32; BN recomputes
     statistics in float32 downstream. (Forcing preferred_element_type=f32 on
     a bf16 conv breaks the gradient transpose: the f32 cotangent meets the
     bf16 kernel in the transposed conv.)
@@ -174,8 +174,7 @@ def maxpool2(x):
     backward routes the cotangent to the FIRST maximal element of each
     2x2 window (row-major window order) computed densely, which is
     exactly ``select_and_scatter``'s semantics but without the serial
-    scatter (11x its HBM floor at L0 shapes — docs/train_glue_r4.csv,
-    docs/VALIDATION.md round 4). Tie routing pinned by
+    scatter. Tie routing pinned by
     tests/test_unet2d.py::test_maxpool2_dense_grad_matches_reduce_window.
     (NOT two cascaded 2-element pools — that routes (1,2;2,0)-style tied
     windows to the column-then-row winner, not the row-major first max.)
@@ -278,8 +277,7 @@ def upsample1d(x):
     return jnp.repeat(x, 2, axis=1)
 
 
-# Experiment knob (examples/analysis/train_mfu_sweep.py): when False, BN
-# batch stats reduce in the COMPUTE dtype (bf16) instead of upcasting every
+# Experiment knob: when False, BN batch stats reduce in the COMPUTE dtype (bf16) instead of upcasting every
 # activation to f32 first — saving the f32 temp's bandwidth at the cost of
 # stat precision. Read at TRACE time: flip it only around constructing a
 # fresh train step (jit caches do not key on module globals). Production
@@ -310,20 +308,14 @@ def batch_norm(x, p, s, train: bool, momentum: float):
     return y, new_s
 
 
-# Experiment knob (examples/analysis/dropout_remat_bench.py): when True,
-# dropout uses a custom_vjp whose BACKWARD regenerates the mask from the
+# Experiment knob: when True, dropout uses a custom_vjp whose BACKWARD regenerates the mask from the
 # PRNG key instead of letting AD carry the mask as a residual. Forward
 # values and gradients are bitwise-identical either way (same key -> same
 # bernoulli draw); what changes is the HLO handed to XLA — the residual
 # form can force mask materialization at fusion boundaries, the remat
 # form presents two independent cheap draws XLA may fuse into each
 # consumer. Read at TRACE time (flip only around building a fresh step).
-#
-# VERDICT (measured, docs/dropout_remat_r4.csv + VALIDATION §dropout
-# backward-remat): neutral-to-slightly-worse on every path x PRNG combo
-# (production W-packed+rbg 9.560 -> 9.527 ms = noise; threefry combos
-# +0.3-0.5 ms) — the default stays False; kept as a documented negative
-# result. The real dropout lever is the rbg PRNG (preset="perf").
+# Off by default; no H100 measurement has shown it to win.
 DROPOUT_REMAT_BWD = False
 
 
@@ -362,20 +354,14 @@ def dropout(x, rate: float, train: bool, key):
     return _dropout_apply(x, rate, key)
 
 
-# Experiment knob (examples/analysis/dropout_fused_bench.py): when True,
-# the W-packed training forward draws ALL of a step's dropout masks in ONE
+# Experiment knob: when True, the W-packed training forward draws ALL of a step's dropout masks in ONE
 # PRNG call (fused_dropout_masks) instead of seven per-site bernoulli
 # draws. Same per-element Bernoulli(keep) distribution (the reshape of a
 # counter-mode stream is bijective); what changes is the HLO — one big
 # random-bits kernel + seven slice/compares vs seven independent draws,
 # each a potential fusion boundary in the backward graph. Read at TRACE
-# time, like DROPOUT_REMAT_BWD.
-#
-# VERDICT (round 5, measured — .round5_logs/dropout_fused.csv and
-# docs/VALIDATION.md §one-draw fused dropout): LOSES. threefry
-# 11.12->14.26 ms/step (+28%: the one giant draw serializes ahead of the
-# step and its slices break backward fusions), rbg 9.42->9.63 (+2%).
-# Default stays False; the PRNG impl (rbg preset) is the real lever.
+# time, like DROPOUT_REMAT_BWD. Off by default; no H100 measurement has
+# shown it to win.
 DROPOUT_FUSED_DRAW = False
 
 

@@ -12,7 +12,7 @@ The supported spike-inference paths in this framework:
 - deep: :class:`deepcalcium_tpu.models.unet_1d_segmentation.UNet1DSegmentation`
 - classical (the capability C2S provided): a JAX-native convolutional GLM,
   :class:`deepcalcium_tpu.models.glm_spikes.GLMSegmentation` — the linear
-  core of c2s's STM, trained on TPU, same fit/predict contract.
+  core of c2s's STM, trained on the device, same fit/predict contract.
 """
 
 

@@ -1,4 +1,4 @@
-"""GLM/STM spike inference: the TPU-native replacement for the C2S baseline.
+"""GLM/STM spike inference: the JAX replacement for the C2S baseline.
 
 The reference's ``C2SSegmentation`` wrapped the external c2s package (C++
 CMT/liblbfgs STM models) and is broken upstream (SURVEY §2 row 29; see

@@ -1,10 +1,10 @@
-"""MXU-shaped inference path for UNet1D: T-axis packing, exact rewrites.
+"""Channel-packed inference path for UNet1D: T-axis packing, exact rewrites.
 
 The 1-D analog of ``unet2d_fast.apply_fast_w`` (see that module's block
 comment for the theory). A (B, T, C) trace tensor's last two axes are
 adjacent, so packing time into channels — (B, T/r, rC) with (q, c)-major
-channels — is a row-major-contiguous (free) reshape, and rC lands exactly
-on the 128-lane tile at the thin levels (L0: 4x32, L1: 2x64). A k=5 SAME
+channels — is a row-major-contiguous (free) reshape, and rC is 128 at the
+thin levels (L0: 4x32, L1: 2x64 at nfb=32). A k=5 SAME
 conv on the original trace is exactly a 3-tap conv on the packing with the
 (3, r*cin, r*cout) kernel built by :func:`tpack_conv5_kernel`; MaxPool1D(2)
 becomes a channel-group max (no windowing at the packed levels at all);
@@ -108,8 +108,7 @@ def apply_fast_t(params, state, x, train: bool = False, rng=None,
         return jax.nn.relu(ya + yb + jnp.tile(bb, r).astype(dt))
 
     def pool_std(hh):
-        # Strided-slice max == reduce_window bitwise; the strided form's
-        # forward measured 2.5x faster at the 2-D L0 shape (blocks.pool2_axis).
+        # Strided-slice max == reduce_window bitwise (blocks.pool2_axis).
         return B.pool2_axis(hh, 1)
 
     # ---- encoder: level 0 T4-packed, level 1 T2-packed, then standard ----

@@ -14,13 +14,13 @@ Behavioral mirror of the reference Keras builder ``unet`` (reference
 - Head: Conv1x1 -> 2-channel softmax -> take channel -1 as the foreground
   probability map (:221-222).
 
-TPU-first differences (behavior preserved, mechanics changed):
+Differences (behavior preserved, mechanics changed):
 - Fully convolutional with no baked input shape: ONE ``apply`` serves
   training at 128² and inference at 512², replacing the reference's
   two-models-plus-HDF5-config-rewrite machinery
   (``utils/keras_helpers.py:24-68``).
-- Transpose conv is an einsum (exact for k=s=2) — an MXU matmul.
-- ``compute_dtype=bfloat16`` runs convolutions on the MXU in bf16 with
+- Transpose conv is an einsum (exact for k=s=2) — one matmul.
+- ``compute_dtype=bfloat16`` runs convolutions on the tensor cores in bf16 with
   float32 params/statistics/softmax (off by default for parity tests).
 
 Params/state are flat dicts keyed by layer names in Keras build order
@@ -130,7 +130,7 @@ def apply(params, state, x, train: bool = False, rng=None,
         train: batch-stat BN + dropout when True.
         rng: PRNGKey, required when train=True.
         drp: base dropout proportion (reference default 0.25).
-        compute_dtype: e.g. jnp.bfloat16 for MXU compute; None = x.dtype.
+        compute_dtype: e.g. jnp.bfloat16 for bf16 convs; None = x.dtype.
         precision: lax.Precision for convs; HIGHEST for parity testing.
         capture: optional dict; when given, per-block activations are stored
             into it (for inspection tooling — the reference's

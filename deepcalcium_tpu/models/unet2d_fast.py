@@ -1,36 +1,35 @@
-"""MXU-shaped inference path for UNet2DS: exact rewrites, same weights.
+"""Channel-packed inference path for UNet2DS: exact rewrites, same weights.
 
-The plain eval forward at (8, 512, 512) spends ~70% of its time in the
-level-0/1 blocks whose channel counts (1/2/32/64) starve the 128x128 MXU:
-a conv contributes roughly min(cin,128)/128 x min(cout,128)/128 of peak, so
-the 32->32 convs at 512^2 run at ~1/16 peak while dec3a (512->256) measures
-96% of peak (examples/analysis/unet_layer_bench.py, docs/VALIDATION.md).
-
-Three *mathematically exact* transformations fix the thin layers without
-touching the weights or the training path:
+The plain forward spends much of its time in the level-0/1 blocks, whose
+channel counts (1/2/32/64) are thin for the wide matrix tiles the
+convolutions run on. Three *mathematically exact* transformations reshape
+those layers without touching the weights:
 
 1. **Space-to-depth at level 0** — every 512^2 tensor is held as its
    (256^2, 4C) space-to-depth packing ((p, q) major, c minor). A stride-1
    3x3 conv on the original image is exactly a 3x3 conv on the packing with
    a sparse (4cin, 4cout) kernel built from the original by
-   :func:`s2d_conv3_kernel` (4x the FLOPs at ~16x the MXU utilization);
+   :func:`s2d_conv3_kernel` (4x the FLOPs on 4x wider channels);
    MaxPool2 becomes a channel-group max (no spatial window); the k=2 s=2
    transpose conv becomes a 1x1 conv (pure matmul, no interleave).
 2. **BN folding** — inference BN is per-channel affine; its scale/shift
    fold into the preceding conv's kernel/bias (:func:`fold_bn`), removing
    every BN from the graph.
 3. **Sigmoid head** — softmax([a, b])[1] == sigmoid(b - a), so the
-   2-channel 1x1 conv + softmax (whose C=2 tensors pad to 128 lanes and
-   measured 0.1 TFLOP/s) becomes a single channel-reduction dot.
+   2-channel 1x1 conv + softmax becomes a single channel-reduction dot.
 
 `apply_fast(params, state, x)` matches `unet2d.apply(..., train=False)` to
 float tolerance (tests/test_unet2d_fast.py). Training keeps the
 reference-parity path in models/unet2d.py.
 
 ``apply_fast_w`` below supersedes it for dispatch: width-only packing whose
-seams are all layout-preserving reshapes (measured on v5e at (8, 512, 512):
-parity 25.4 ms, apply_fast 12.3 ms, apply_fast_w 9.9 ms). It is what
-``UNet2DSummary.evaluate_movie(fast="auto")`` and ``bench.py`` use.
+seams are all layout-preserving reshapes. It is what
+``UNet2DSummary.evaluate_movie(fast="auto")`` and ``bench.py`` use: on an
+H100 (700 W) it runs the bf16 8-view 512² TTA forward in 3.6-3.9 ms against
+4.6-4.7 ms for the plain ``unet2d.apply``. Its training twin
+``apply_fast_w_train`` is SLOWER than the plain step there (6.1 vs 4.2 ms
+at batch 20 @ 128², bf16), so ``fit(fast_train="auto")`` keeps the plain
+net and the packed step is reachable only through ``fast_train=True``.
 """
 
 import jax
@@ -71,8 +70,8 @@ def s2d_conv3_kernel(k):
         out[u', o] at offset (p', q') sums K[du, dv, c, o] X[u'+du-1, ...];
         writing u' = 2i' + p' and u = 2i + p gives p = (p'+du-1) mod 2 and
         di = (p'+du-1-p)/2 in {-1, 0, 1} — a 3x3 neighborhood in packed
-        space. 25% dense; the dense matmul trades 4x FLOPs for full-lane
-        MXU occupancy.
+        space. 25% dense; the dense matmul trades 4x FLOPs for 4x wider
+        channel dims.
     """
     kh, kw, cin, cout = k.shape
     assert (kh, kw) == (3, 3), (kh, kw)
@@ -126,12 +125,9 @@ def up_w2_kernel(kt):
     Derivation: out[b, 2i+p, j, (q, o)] = sum_c hh[b, i, j, c]*kt[p, q, o, c].
     With the input H-dilated by 2 and padding (1, 0), dilated position
     r = 2i+p receives kernel tap t = 1-p — the kernel H axis is FLIPPED.
-    W stays in lanes: output channel layout (q, o) q-major == W2 packing.
-
-    Round-4 measured (up_tconv_bench.py, batch 20 @128², bf16): the 6-D
-    einsum lowering ran at 14 TF/s (0.247 ms fwd+gx+gk); this dilated-conv
-    form runs the same op in 0.037 ms (6.7x) — XLA's native tconv path
-    needs no 6-D strided-copy intermediate.
+    W stays in the minor (channel) dim: output channel layout (q, o)
+    q-major == W2 packing. XLA lowers this dilated conv natively, with no
+    6-D strided-copy intermediate of the einsum form.
     """
     k = jnp.flip(kt, axis=0).transpose(0, 3, 1, 2)   # (1-p, c, q, o)
     p, c, q, o = k.shape
@@ -143,12 +139,11 @@ def up_w4_kernel(kt):
     (2, 1, 2c, 4o) for the W2->W4 upsample as ONE ``lhs_dilation=(2, 1)``
     conv.
 
-    The W2 input group q1 (lanes (q1, c)) maps to W4 output group
-    q = 2*q1 + L (lanes (q1, L, o)) — channel mixing is block-diagonal in
-    q1. Writing the two 64->64 groups as one dense 128x128 kernel (zeros
-    off-diagonal) doubles the FLOPs of a tiny op but buys full MXU tiles
-    and XLA's dense-conv schedule: measured 1.41 -> 0.068 ms fwd+gx+gk
-    (20.7x; the feature_group_count=2 form only reached 0.78 ms).
+    The W2 input group q1 (channels (q1, c)) maps to W4 output group
+    q = 2*q1 + L (channels (q1, L, o)) — channel mixing is block-diagonal
+    in q1. Writing the two 64->64 groups as one dense 128x128 kernel (zeros
+    off-diagonal) doubles the FLOPs of a tiny op but keeps it on XLA's
+    dense-conv schedule instead of a ``feature_group_count=2`` conv.
     """
     kb = up_w2_kernel(kt)                            # (2, 1, c, 2o)
     p, _, c, o2 = kb.shape
@@ -169,14 +164,11 @@ def hpool2(z):
 
     Forward is bitwise-equal to ``lax.reduce_window(z, -inf, max,
     (1,2,1,1), (1,2,1,1), "VALID")``. The backward replaces XLA's
-    ``select_and_scatter`` (0.59 ms at the L0 shape, 11x its HBM floor
-    — docs/train_glue_r4.csv) with first-match routing computed
-    densely: for a 2-element window, select_and_scatter's "first
-    maximal element wins" is exactly ``a >= b`` — identical gradients
-    INCLUDING ties (asserted on all-tied data in train_glue_bench.py).
-    Measured 0.84 -> 0.40 ms fwd+bwd at L0; the strided-slice
-    ``maximum`` forward alone is 2.5x the reduce_window form.
-    Implementation shared with the 1-D T-pools: blocks.pool2_axis.
+    ``select_and_scatter`` with first-match routing computed densely: for
+    a 2-element window, select_and_scatter's "first maximal element wins"
+    is exactly ``a >= b`` — identical gradients INCLUDING ties (pinned by
+    tests). Implementation shared with the 1-D T-pools:
+    blocks.pool2_axis.
     """
     return blocks.pool2_axis(z, 1)
 
@@ -261,22 +253,16 @@ def apply_fast(params, state, x, train: bool = False, rng=None,
 
     nfb = params["enc0a_conv"]["kernel"].shape[-1]
 
-    # ---- level 0 in space-to-depth form (no thin-channel 512^2 convs;
-    # measured on v5e: extending s2d to level 1 as well is a net LOSS —
-    # 16.6 ms vs 13.8 ms for the (8, 512, 512) forward — because at
-    # K, N >= 64 the 4x FLOP inflation outweighs the utilization gain) ----
+    # ---- level 0 in space-to-depth form (no thin-channel 512^2 convs) ----
     z = _s2d(x[..., None].astype(dt))               # (B, H/2, W/2, 4)
     z = cbr_s2d("enc0a", z)
     z = cbr_s2d("enc0b", z)                          # skip0, s2d (4*nfb)
     skip0 = z
     hh = pool_s2d(z, nfb)                            # (B, H/2, W/2, nfb)
 
-    # ---- levels 1..4: standard path with folded BN. Measured on v5e
-    # (8, 512, 512): extending s2d to level 1 LOSES — full L1 16.6 ms,
-    # encoder-only L1 14.9 ms, vs 13.8 ms for L0-only — because unlike
-    # level 0 (whose packing boundaries are free reshapes), level 1 pays
-    # real 67-134 MB minor-dim transposes at the _s2d/_inv_s2d seams and
-    # its K >= 64 convs already run at a usable fraction of peak. ----
+    # ---- levels 1..4: standard path with folded BN (unlike level 0,
+    # whose packing boundaries are free reshapes, an s2d level 1 would pay
+    # real minor-dim transposes at the _s2d/_inv_s2d seams) ----
     hh = cbr("enc1b", cbr("enc1a", hh))
     skip1 = hh
     hh = B.maxpool2(hh)
@@ -316,32 +302,28 @@ def apply_fast(params, state, x, train: bool = False, rng=None,
 # W-packed variant: width-only space-to-depth with FREE seams
 # ---------------------------------------------------------------------------
 #
-# The 2x2 s2d above fixes level 0 but loses at level 1: its pack/unpack
-# seams are real minor-dim transposes (~60-180 GB/s, docs/VALIDATION.md),
-# and at C >= 64 the 4x FLOP inflation only breaks even with the 4x MXU
-# utilization gain. Packing along W ALONE dodges both problems:
+# The 2x2 s2d above packs level 0 but not level 1: its pack/unpack seams
+# are real minor-dim transposes, and at C >= 64 the 4x FLOP inflation buys
+# little. Packing along W ALONE dodges both problems:
 #
 # - W and C are ADJACENT axes of an NHWC tensor, so the factor-r pack
 #   (B, H, W, C) -> (B, H, W/r, rC) with (q, c)-major channels is a
-#   row-major-contiguous reshape. When rC lands exactly on the 128-lane
-#   tile (L0: 4x32, L1: 2x64) the physical layout is unchanged — the seam
-#   is free. The 2x2 scheme's seams shuffle lanes; these don't.
-# - The FLOP inflation is only r-fold, and r=2 suffices at level 1 to
-#   reach full lanes: 2x FLOPs at ~4x utilization is a genuine 2x win
-#   (measured: enc1b std 1.15 ms -> W2 0.5 ms class).
+#   row-major-contiguous reshape: the seam is free (L0: 4x32, L1: 2x64
+#   channels at the published nfb=32). The 2x2 scheme's seams shuffle the
+#   minor dim; these don't.
+# - The FLOP inflation is only r-fold, and r=2 suffices at level 1.
 # - Pools halve W, which exactly halves the pack factor at CONSTANT
 #   packed width: L0 (W/4 cols, r=4) -> L1 (W/4 cols, r=2) -> L2
 #   (W/4 cols, r=1). pool0/pool1 become a channel-group max (the W half)
 #   + a plain H-window reduction; no repacking ever happens.
 # - Transpose convs write (i, p, j, (q, o)) einsum outputs whose merges
-#   (i,p)->H (above the tiled dims) and (q,o)->lanes (an exact 128 block)
-#   are layout-preserving, killing the up1 interleave (measured 0.85 ms
-#   -> 0.11 ms class).
+#   (i,p)->H and (q,o)->channels are layout-preserving, killing the up1
+#   interleave.
 # - Skip concats are replaced by SPLIT convs (conv(concat(a,b), K) ==
 #   conv(a, K_a) + conv(b, K_b)), so no concat tensor is materialized.
 #
-# Replaces the same reference path as apply_fast
-# (/root/reference/deepcalcium/models/unet_2d_summary.py:532-625 predict).
+# Replaces the same reference path as apply_fast (reference
+# deepcalcium/models/unet_2d_summary.py:532-625 predict).
 
 
 def wpack_conv3_kernel(k, r):
@@ -437,10 +419,9 @@ def apply_fast_w(params, state, x, train: bool = False, rng=None,
         y = jnp.einsum("bijc,pqoc->bipjqo", hh.astype(dt), k.astype(dt))
         bsz, hh_, _, ww_, _, o = y.shape
         if staged:
-            # Two-step merge: first to the W2 form ((q,o) -> lanes, free),
-            # then split back to standard. Measured 4x faster than the
-            # direct (w,q) merge for o=128 (up2: 1.30 -> 0.32 ms); the
-            # barrier stops XLA from refusing the staging.
+            # Two-step merge: first to the W2 form ((q,o) -> channels,
+            # free), then split back to standard; the barrier stops XLA
+            # from folding the staging away.
             y = y.reshape(bsz, 2 * hh_, ww_, 2 * o)
             y = jax.lax.optimization_barrier(y)
             y = y.reshape(bsz, 2 * hh_, 2 * ww_, o)
@@ -450,7 +431,7 @@ def apply_fast_w(params, state, x, train: bool = False, rng=None,
 
     def up_to_w2(name, hh):
         """k=2 s=2 tconv from a STANDARD tensor into W2-packed layout:
-        one lhs_dilation=(2, 1) conv (H upsample; (q, o)->lanes is the
+        one lhs_dilation=(2, 1) conv (H upsample; (q, o)->channels is the
         kernel's channel layout). See :func:`up_w2_kernel`."""
         k, bias = fold_up(name)
         y = _up_dilated(hh.astype(dt), up_w2_kernel(k).astype(dt))
@@ -466,15 +447,13 @@ def apply_fast_w(params, state, x, train: bool = False, rng=None,
         y = _up_dilated(hh.astype(dt), up_w4_kernel(k).astype(dt))
         return jax.nn.relu(y + tilebias(bias, 4).astype(dt))
 
-    # The W4/W2 lane packing is exact for any nfb; it reaches FULL 128-lane
-    # tiles at the published nfb=32 (4x32 / 2x64).
+    # The W4/W2 packing is exact for any nfb; at the published nfb=32 it
+    # gives 128 channels at levels 0 and 1 (4x32 / 2x64).
     nfb = params["enc0a_conv"]["kernel"].shape[-1]
 
     # ---- level 0, W4-packed (free reshape from the raw image) ----
-    # Cast on the 3-D (minor dim = W = full lane tiles) form BEFORE the
-    # packing reshape: casting a (..., 1)- or (..., 4)-lane tensor first
-    # materializes a 128-lane-padded f32 intermediate (measured +1.9 ms on
-    # f32 TTA views at (8, 512, 512)).
+    # Cast on the 3-D (minor dim = W) form BEFORE the packing reshape, so
+    # no thin-minor-dim (..., 1) or (..., 4) intermediate is cast.
     z = x.astype(dt).reshape(b, h, wp, 4)
     k0, b0 = fold("enc0a")
     z = jax.nn.relu(_conv(z, wpack_conv3_kernel(k0, 4), tilebias(b0, 4), dt))
@@ -506,9 +485,9 @@ def apply_fast_w(params, state, x, train: bool = False, rng=None,
 
     # Mid block with the batch folded into H (2 zero gap rows per image,
     # re-zeroed between the convs): at the 32x32 mid grid the per-image
-    # spatial extent is too small for efficient MXU tiling — folding
-    # measured 1.19 -> 0.24 ms for mida. Exact: gap zeros reproduce each
-    # image's SAME zero padding, and gap rows are dropped at the end.
+    # spatial extent is small, so one tall image gives the conv more rows
+    # to tile. Exact: gap zeros reproduce each image's SAME zero padding,
+    # and gap rows are dropped at the end.
     bs, hm, wm, cm = hh.shape
     xf = jnp.pad(hh, ((0, 0), (0, 2), (0, 0), (0, 0))).reshape(
         1, bs * (hm + 2), wm, cm)
@@ -518,10 +497,7 @@ def apply_fast_w(params, state, x, train: bool = False, rng=None,
     hh = y.reshape(bs, hm + 2, wm, -1)[:, :hm]
 
     hh = up_std("up3", hh)
-    # dec3a as split convs (no concat tensor): measured 0.68 -> 0.39 ms at
-    # (8, 64, 64). The same split at dec2a LOSES (0.94 -> 2.85 ms — XLA
-    # picks a worse schedule for the (3,3,128,128)@128² pair), so dec2a
-    # keeps the concat.
+    # dec3a as split convs (no concat tensor); dec2a keeps the concat.
     k3, b3 = fold("dec3a")
     cu = hh.shape[-1]
     hh = jax.nn.relu(
@@ -601,10 +577,9 @@ def apply_fast_w_train(params, state, x, train: bool = True, rng=None,
         (…, r*c) packed tensor ((q, c)-major)."""
         c = y.shape[-1] // r
         # Honor blocks.BN_STATS_F32 exactly like blocks.batch_norm does:
-        # the train_mfu_sweep ablation flips it, and the packed layers
-        # carry the LARGEST activations (enc0*/dec0* at full resolution),
-        # so ignoring it here would make the ablation compare
-        # mostly-unchanged graphs.
+        # the packed layers carry the LARGEST activations (enc0*/dec0* at
+        # full resolution), so ignoring it here would leave an ablation
+        # comparing mostly-unchanged graphs.
         ys = y.astype(jnp.float32) if B.BN_STATS_F32 else y
         y5 = ys.reshape(*y.shape[:-1], r, c)
         mean = jnp.mean(y5, axis=tuple(range(y5.ndim - 1))).astype(jnp.float32)
@@ -737,7 +712,7 @@ def apply_fast_w_train(params, state, x, train: bool = True, rng=None,
     z = cbr_w("enc0b", cbr_w("enc0a", z, 4), 4)
     skip0 = z
     m = z.reshape(b, h, wp, 2, 2, nfb).max(axis=4).reshape(b, h, wp, 2 * nfb)
-    hh = hpool2(m)  # dense-grad H pool: 0.84 -> 0.40 ms fwd+bwd at L0
+    hh = hpool2(m)  # dense-grad H pool
 
     # ---- level 1, W2 ----
     hh = drop(cbr_w("enc1b", cbr_w("enc1a", hh, 2), 2), drp)

@@ -7,7 +7,7 @@ axes (1, 2)) and the train-time augmentation walk
 generators {identity, hflip, vflip, rot90, rot180, rot270} composed
 sequentially).
 
-TPU-first design:
+Design:
 - TTA is ONE batched forward: :func:`tta_expand` stacks all 8 views on a new
   leading axis (pure ``jnp`` flips/rot90s, fully fused by XLA), the model runs
   once on the 8x batch, and :func:`tta_collapse` inverts + averages on device.

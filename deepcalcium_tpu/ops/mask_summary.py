@@ -24,8 +24,8 @@ Two implementations:
   (conflicts dilated by 3x3). It can differ from the sequential walk on
   chains of touching neurons where an early deletion removes the witness
   of a later conflict (only ever OVER-deleting — never adding pixels);
-  tests bound the divergence on synthetic data. Status (settled round 4,
-  VERDICT r3 #8): the exact walk runs ONCE per dataset on the host and is
+  tests bound the divergence on synthetic data. Status: the exact walk
+  runs ONCE per dataset on the host and is
   nowhere near any hot path, so the stencil earns no default-path caller;
   it stays available through the ``mask_summary_func`` injection point
   for users who want jit-able target generation and accept the
@@ -86,7 +86,7 @@ def id_map_from_stack(msks):
 
     ``id_map`` holds the 1-based neuron id at single-covered pixels, 0
     elsewhere. Pure jnp; the contraction over N is a matmul-shaped reduction
-    XLA maps onto the MXU for large N.
+    XLA maps onto the matrix units for large N.
     """
     msks = jnp.asarray(msks)
     n = msks.shape[0]

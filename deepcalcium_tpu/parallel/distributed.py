@@ -3,11 +3,11 @@
 The reference is single-process/single-GPU with no collectives (SURVEY
 §2.2). This module is the multi-slice/multi-host entry point for the
 rebuild: call :func:`initialize` once per process before any JAX use on a
-multi-host TPU pod; build meshes with :func:`pod_mesh`.
+multi-host GPU cluster; build meshes with :func:`pod_mesh`.
 
 On a single host (or under the test harness) both are safe no-ops /
 trivial meshes, so the same training scripts run unchanged from a laptop to
-a pod slice — the GSPMD train step (train/trainer.py) is layout-agnostic.
+a cluster — the GSPMD train step (train/trainer.py) is layout-agnostic.
 """
 
 import logging
@@ -24,9 +24,11 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize jax.distributed for multi-host runs.
 
-    No-op when no coordinator is configured (single-host). TPU pod
-    environments auto-discover via the TPU metadata when all args are None;
-    explicit args override.
+    No-op when no coordinator is configured (single-host). With all args
+    None, ``jax.distributed.initialize`` auto-discovers the GPU cluster
+    where the scheduler publishes it (e.g. SLURM, Open MPI); elsewhere pass
+    ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id`` explicitly.
     """
     if coordinator_address is None and num_processes is None:
         if jax.process_count() > 1:  # already initialized by the runtime
@@ -36,13 +38,13 @@ def initialize(coordinator_address: str | None = None,
             logger.info("jax.distributed initialized: process %d/%d",
                         jax.process_index(), jax.process_count())
         except Exception as e:
-            # WARNING, not info: on a real multi-host pod a failed
+            # WARNING, not info: on a real multi-host cluster a failed
             # auto-init silently degrades to per-host isolated training
             # (gradients never sync across hosts). Single-host users see
-            # one benign warning; pod users get a visible signal.
+            # one benign warning; cluster users get a visible signal.
             logger.warning(
                 "jax.distributed auto-init failed (%s) — continuing "
-                "single-process. If this IS a multi-host pod, training "
+                "single-process. If this IS a multi-host run, training "
                 "will NOT synchronize across hosts; pass explicit "
                 "coordinator_address/num_processes/process_id.", e)
         return
@@ -52,7 +54,7 @@ def initialize(coordinator_address: str | None = None,
 
 
 def pod_mesh(axis: str = "data") -> Mesh:
-    """1-D mesh over every device in the pod (all hosts)."""
+    """1-D mesh over every device of every process (all hosts)."""
     return Mesh(np.array(jax.devices()), (axis,))
 
 

@@ -5,45 +5,69 @@ input-shape-rewriting loader (``utils/keras_helpers.py:24-68``). The JAX nets
 are fully convolutional, so checkpoints carry no input shape at all — one
 file serves 128² training and 512² inference.
 
-Format: a single msgpack file (flax.serialization) holding
-``{"params", "state", "opt_state"(optional), "meta"}`` written atomically
-(tmp + rename) so a preempted TPU job never sees a torn checkpoint.
+Format: one ``np.savez`` archive. Each array leaf of ``params``, ``state``
+and (optionally) ``opt_state`` is stored under ``"<tree>/<key path>"``;
+``meta`` is a JSON string under ``"__meta__"`` and each leaf's dtype name
+under ``"__dtypes__"`` (bfloat16 leaves are stored as their uint16 bit
+pattern, which ``np.savez`` can hold). The file is written atomically
+(tmp + rename) so a preempted job never sees a torn checkpoint. Loading
+needs numpy only: no pickle, no third-party serializer.
 """
 
+import json
 import os
 import tempfile
 
 import jax
+import jax.numpy as jnp
 import numpy as np
-from flax import serialization
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint"]
 
+_TREES = ("params", "state", "opt_state")
 
-def _to_host(tree):
-    return jax.tree.map(lambda x: np.asarray(x), tree)
+
+def _key(tree_name, path):
+    return f"{tree_name}/{jax.tree_util.keystr(path)}"
 
 
 def save_checkpoint(path: str, params, state, opt_state=None, meta: dict | None = None):
     """Atomically serialize a training snapshot to ``path``."""
-    payload = {
-        "params": _to_host(params),
-        "state": _to_host(state),
-        "opt_state": _to_host(opt_state) if opt_state is not None else {},
-        "meta": meta or {},
-    }
-    blob = serialization.to_bytes(payload)
+    arrays, dtypes = {}, {}
+    for name, tree in zip(_TREES, (params, state, opt_state)):
+        if tree is None:
+            continue
+        for p, leaf in jax.tree_util.tree_leaves_with_path(tree):
+            a = np.asarray(leaf)
+            k = _key(name, p)
+            dtypes[k] = a.dtype.name
+            if a.dtype.kind == "V" or a.dtype.name not in np.sctypeDict:
+                # ml_dtypes (bfloat16 & co.): keep the raw bits.
+                a = a.view(f"u{a.dtype.itemsize}")
+            arrays[k] = a
+    arrays["__meta__"] = np.asarray(json.dumps(meta or {}))
+    arrays["__dtypes__"] = np.asarray(json.dumps(dtypes))
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as fp:
-            fp.write(blob)
+            np.savez(fp, **arrays)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return path
+
+
+def _restore(npz, dtypes, tree_name, like):
+    def leaf(p, _):
+        k = _key(tree_name, p)
+        if k not in npz:
+            raise KeyError(f"checkpoint has no leaf {k!r}")
+        return np.asarray(npz[k]).view(jnp.dtype(dtypes[k]))
+
+    return jax.tree_util.tree_map_with_path(leaf, like)
 
 
 def load_checkpoint(path: str, params_like, state_like, opt_state_like=None):
@@ -52,17 +76,16 @@ def load_checkpoint(path: str, params_like, state_like, opt_state_like=None):
     # Returns
         (params, state, opt_state_or_None, meta)
     """
-    with open(path, "rb") as fp:
-        blob = fp.read()
-    # msgpack_restore needs no target (meta has arbitrary keys); the
-    # structured pytrees are then rebuilt against their templates.
-    raw = serialization.msgpack_restore(blob)
-    params = serialization.from_state_dict(params_like, raw["params"])
-    state = serialization.from_state_dict(state_like, raw["state"])
-    opt = None
-    if opt_state_like is not None and raw.get("opt_state"):
-        opt = serialization.from_state_dict(opt_state_like, raw["opt_state"])
-    return params, state, opt, raw.get("meta", {})
+    with np.load(path, allow_pickle=False) as npz:
+        dtypes = json.loads(str(npz["__dtypes__"]))
+        meta = json.loads(str(npz["__meta__"]))
+        params = _restore(npz, dtypes, "params", params_like)
+        state = _restore(npz, dtypes, "state", state_like)
+        opt = None
+        if opt_state_like is not None and any(
+                k.startswith("opt_state/") for k in dtypes):
+            opt = _restore(npz, dtypes, "opt_state", opt_state_like)
+    return params, state, opt, meta
 
 
 def latest_checkpoint(cpdir: str, prefix: str = "") -> str | None:

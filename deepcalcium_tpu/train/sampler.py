@@ -17,7 +17,7 @@ Host/device split: index generation and window crops are irregular,
 data-dependent gathers over tiny 2-D images — they stay on host NumPy. The
 produced (B, hw, ww) batches are dense and fixed-shape: they stream to the
 device through :class:`Prefetcher`, which keeps the next batch in flight
-while the TPU runs the current step (replaces Keras ``fit_generator``'s
+while the device runs the current step (replaces Keras ``fit_generator``'s
 1-deep queue, reference ``:429-430``).
 """
 

@@ -1,7 +1,7 @@
 """Spike-dataset statistics and figures.
 
 Counterpart of the reference's ``notebooks/suli_figures.ipynb`` (SURVEY §2
-row 34, VERDICT r2 missing #4): that notebook reported the spike corpus's
+row 34): that notebook reported the spike corpus's
 shape — trace/spike counts at the 80/20 split (cell 3: ~506 traces, ~5.6k
 spikes), per-trace spike-count and spike-rate distributions, and sample
 trace-with-spikes figures. This script produces the same statistics and

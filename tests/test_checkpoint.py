@@ -52,3 +52,24 @@ def test_latest_checkpoint_by_mtime(tmp_path):
     os.utime(a, (0, 0))
     assert latest_checkpoint(str(tmp_path)) == b
     assert latest_checkpoint(str(tmp_path / "missing")) is None
+
+
+def test_roundtrip_bf16_int_leaves_and_meta(tmp_path):
+    """The npz format keeps every leaf's dtype (bfloat16 as raw bits, ints
+    as ints) and the JSON meta, with no pickle on load."""
+    import jax.numpy as jnp
+
+    params = {"w": jnp.arange(6, dtype=jnp.bfloat16).reshape(2, 3) / 3,
+              "n": np.arange(4, dtype=np.int32)}
+    state = {"step": np.int64(7), "flag": np.array([True, False])}
+    meta = {"epoch": 2, "name": "x", "score": 0.25}
+    path = str(tmp_path / "m.ckpt")
+    save_checkpoint(path, params, state, meta=meta)
+    like = jax.tree.map(np.zeros_like, (params, state))
+    p, s, o, m = load_checkpoint(path, *like)
+    assert o is None and m == meta
+    for a, b in zip(jax.tree.leaves((params, state)), jax.tree.leaves((p, s))):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    with np.load(path, allow_pickle=False) as npz:
+        assert "params/['w']" in npz.files

@@ -90,7 +90,7 @@ def test_segment_movie_auto_dispatch_resolution():
 
 
 def test_cli_parity_golden_offline(fixture_env, capsys):
-    """The pre-staged golden-parity runner (VERDICT r3 #4): the full glue
+    """The pre-staged golden-parity runner: the full glue
     (load model -> predict -> score -> diff vs expected -> exit code) must
     run end-to-end OFFLINE via --paths/-m, PASS inside a wide tolerance,
     and exit 1 when the expected scores can't match."""
@@ -114,7 +114,7 @@ def test_cli_parity_golden_offline(fixture_env, capsys):
 
 def test_parity_golden_label_mapping():
     """Pin the golden expectations to the reference's OWN loop order
-    (VERDICT r4 weak #1 — rounds 1-4 had these swapped). The reference
+    (an earlier version had these swapped). The reference
     evaluation loop is ``for aug in [True, False]`` — the TTA pass runs
     FIRST (/root/reference/examples/neurons/unet2ds_nf.py:52-62), and in
     the README's captured output the 0.976/0.988 block appears BEFORE the

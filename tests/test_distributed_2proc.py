@@ -1,7 +1,7 @@
 """Two-process ``jax.distributed`` train step == single-process step.
 
-The first multi-PROCESS evidence for parallel/distributed.py (SURVEY §2.2
-'jax.distributed + DCN'; VERDICT r2 missing #2): everything else in the
+The multi-PROCESS evidence for parallel/distributed.py (SURVEY §2.2
+'jax.distributed + DCN'): everything else in the
 suite exercises the degenerate single-process form of
 ``initialize``/``global_batch_from_local``. Here two real OS processes
 (2 virtual CPU devices each) form a 4-device global mesh over a localhost

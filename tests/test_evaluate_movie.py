@@ -170,3 +170,41 @@ def test_evaluate_constant_movie_no_nan(tiny_net):
                               tta=True)
     mask, prob, summ = ev(params, state, jnp.asarray(cmovie))
     assert np.isfinite(np.asarray(prob)).all()
+
+
+def test_device_path_needs_no_h5py_or_flax(tmp_path):
+    """The wrappers, trainer and checkpoints import with only jax, numpy,
+    scipy and optax: with h5py and flax unimportable, a tiny in-memory
+    evaluate_movie runs and a checkpoint round-trips."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import sys
+sys.modules["h5py"] = sys.modules["flax"] = None
+import functools, jax, numpy as np
+from deepcalcium_tpu.models import unet2d
+from deepcalcium_tpu.models.unet_2d_summary import UNet2DSummary
+from deepcalcium_tpu.models.unet_1d_segmentation import UNet1DSegmentation
+from deepcalcium_tpu.train import checkpoints, evaluate, sampler, trainer
+params, state = unet2d.init(jax.random.PRNGKey(0), nfb=4)
+model = UNet2DSummary(cpdir=sys.argv[1] + "/cp",
+                      net_init_func=functools.partial(unet2d.init, nfb=4))
+movie = np.random.default_rng(0).integers(0, 900, (6, 32, 32)).astype(np.int16)
+mask, prob = model.evaluate_movie(movie, params=params, state=state,
+                                  window_shape=(32, 32), tta=True)
+assert mask.shape == (32, 32) and np.isfinite(prob).all()
+path = checkpoints.save_checkpoint(sys.argv[1] + "/m.ckpt", params, state)
+p, s, _, _ = checkpoints.load_checkpoint(path, params, state)
+assert all(np.array_equal(a, b) for a, b in
+           zip(jax.tree.leaves(params), jax.tree.leaves(p)))
+print("device path ok")
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "device path ok" in out.stdout

@@ -1,8 +1,11 @@
 """Coverage for small modules with no dedicated test file: the C2S
 deprecation stub, the model-download helper (idempotent path, no network),
-and the shared bench harness (benchtools)."""
+the shared bench harness (benchtools), and chip_smoke.py's refusal to run
+without a GPU."""
 
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -29,9 +32,10 @@ def test_download_model_idempotent(tmp_path):
     assert out == str(p) and p.read_bytes() == b"weights"
 
 
-def test_enable_compile_cache_sets_config(tmp_path):
+def test_enable_compile_cache_sets_config(tmp_path, monkeypatch):
     from deepcalcium_tpu.utils.benchtools import enable_compile_cache
 
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     prev = jax.config.jax_compilation_cache_dir
     try:
         cache = enable_compile_cache()
@@ -47,10 +51,61 @@ def test_enable_compile_cache_sets_config(tmp_path):
         jax.config.update("jax_compilation_cache_dir", prev)
 
 
+def test_enable_compile_cache_honours_env(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX already uses that directory:
+    enable_compile_cache returns it and sets no other."""
+    from deepcalcium_tpu.utils.benchtools import enable_compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cc"))
+    prev = (jax.config.jax_compilation_cache_dir,
+            jax.config.jax_persistent_cache_min_compile_time_secs)
+    assert enable_compile_cache() == str(tmp_path / "cc")
+    assert (jax.config.jax_compilation_cache_dir,
+            jax.config.jax_persistent_cache_min_compile_time_secs) == prev
+
+
+@pytest.mark.parametrize("kind,peak", [("NVIDIA H100 80GB HBM3", 989e12),
+                                       ("Tesla V100-SXM2-16GB", None)])
+def test_device_peak_table(kind, peak):
+    """A known H100 kind has its published bf16 peak; any other kind has
+    none (utilization is then null, never against an assumed peak)."""
+    from deepcalcium_tpu.utils.benchtools import device_peak
+
+    assert device_peak(kind) == peak
+
+
+def test_power_limit_watts_parses_nvidia_smi_line():
+    from deepcalcium_tpu.utils.benchtools import power_limit_watts
+
+    assert power_limit_watts("NVIDIA H100 80GB HBM3, 700.00 W") == 700.0
+    assert power_limit_watts("NVIDIA H100 80GB HBM3, [N/A]") is None
+    assert power_limit_watts(None) is None
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_refuses_without_gpu(tmp_path, where):
+    """chip_smoke.py never reports ok on a CPU-only host, nor from a
+    directory that holds it and nothing else of the repo."""
+    import shutil
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "chip_smoke.py")
+    cwd = root
+    if where == "alone":
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
 def test_slope_train_step_time_smoke():
     """The shared slope timer must run the real train-step graph end-to-end
     and return a finite per-step time on tiny shapes (CPU; the value itself
-    is timing noise here — only bench.py's TPU runs read it)."""
+    is timing noise here — only bench.py's GPU runs read it)."""
     import functools
 
     import jax.numpy as jnp
@@ -118,39 +173,3 @@ def test_search_csv_torn_row_and_atomic_rewrite(tmp_path):
     assert hs.load_rows(str(p)) == []
 
 
-def test_train_step_profile_bucket_classification():
-    """The trace profiler must classify ops by their OWN name, not the
-    full HLO signature: operand lists name their producers (%copy-done,
-    %reshape, ...), which mis-bucketed conv-bearing fusions as
-    copy-reshape in the first round-5 capture (98.4% 'copy' on a step
-    that is 73% MXU fusions)."""
-    import importlib
-    import sys as _sys
-
-    _sys.path.insert(0, "examples/analysis")
-    try:
-        tsp = importlib.import_module("train_step_profile")
-    finally:
-        _sys.path.pop(0)
-
-    # A conv-bearing kOutput fusion whose OPERANDS are copies/reshapes —
-    # must NOT land in copy-reshape.
-    fusion = ("%fusion.1461 = f32[3;3;128;128]{3;2;1;0} fusion("
-              "bf16[20;128;32;128] %copy-done.111, bf16[128] %reshape.8492)"
-              "; kind=kOutput; calls=%fused_computation.752")
-    assert tsp.bucket_of(fusion) == "compute-fusion"
-    assert tsp.bucket_of(
-        "%multiply_reduce_fusion.107 = (bf16[128]) fusion(%copy.1396)"
-    ) == "reduce-fusion"
-    assert tsp.bucket_of(
-        "%copy.1385 = f32[20;128;32;128] copy(f32 %maximum_convert_fusion.2)"
-    ) == "copy-reshape"
-    assert tsp.bucket_of("%convolution.42 = bf16[1] convolution(...)") \
-        == "conv"
-    # convert must not match the conv pattern (conv(?!ert)).
-    assert tsp.bucket_of("%convert_element_type.3 = f32[1] convert(...)") \
-        == "compute-fusion"
-    assert tsp.bucket_of("%rng-bit-generator.24 = u32[1] rng(...)") \
-        == "dropout-rng"
-    assert tsp.bucket_of("%dynamic-update-slice.1377 = ... "
-                         "dynamic-update-slice(...)") == "copy-reshape"

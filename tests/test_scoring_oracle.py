@@ -1,6 +1,6 @@
 """Property tests: metrics/neurofinder.py vs the independent second oracle.
 
-VERDICT round-1 item 3: the scoring path is the ground truth for every F1
+The scoring path is the ground truth for every F1
 the framework reports, and its greedy-match tie-breaking/ordering must not
 silently diverge. Two independent transcriptions of the published
 neurofinder/regional semantics (numpy/scipy production code vs pure-Python

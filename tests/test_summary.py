@@ -1,4 +1,4 @@
-"""Streaming mean/max summary kernels vs np.mean/np.max oracles."""
+"""Mean/max summary reductions vs np.mean/np.max oracles."""
 
 import numpy as np
 import jax
@@ -8,8 +8,6 @@ from jax.sharding import Mesh
 from deepcalcium_tpu.ops.summary import (
     StreamingSummary,
     movie_summary,
-    movie_summary_fast,
-    movie_summary_pallas,
     movie_summary_sharded,
 )
 
@@ -20,30 +18,65 @@ def movie(rng):
 
 
 def test_movie_summary_oracle(movie):
-    mean, mx = movie_summary(movie, chunk=8)
+    mean, mx = movie_summary(movie)
+    assert mx.dtype == movie.dtype
     np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-5)
     np.testing.assert_array_equal(np.asarray(mx), movie.max(0))
 
 
 def test_movie_summary_chunk_invariance(movie):
-    m1, x1 = movie_summary(movie, chunk=5)
-    m2, x2 = movie_summary(movie, chunk=37)
-    np.testing.assert_allclose(np.asarray(m1), np.asarray(m2), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(x1), np.asarray(x2))
+    """Reducing two time chunks and combining them (what the sharded and
+    ragged-tail paths do) equals one reduction of the whole movie."""
+    m1, x1 = movie_summary(movie[:20])
+    m2, x2 = movie_summary(movie[20:])
+    m, x = movie_summary(movie)
+    np.testing.assert_allclose((np.asarray(m1) * 20 + np.asarray(m2) * 17)
+                               / 37, np.asarray(m), rtol=1e-6)
+    np.testing.assert_array_equal(np.maximum(np.asarray(x1), np.asarray(x2)),
+                                  np.asarray(x))
 
 
 def test_movie_summary_float_input(rng):
     movie = rng.standard_normal((16, 8, 16)).astype(np.float32)
-    mean, mx = movie_summary(movie, chunk=4)
+    mean, mx = movie_summary(movie)
     np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(mx), movie.max(0), rtol=1e-6)
 
 
-def test_pallas_summary_interpret(movie):
-    """Pallas kernel in interpreter mode (no TPU in CI) vs oracle."""
-    mean, mx = movie_summary_pallas(movie, chunk=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(mx), movie.max(0))
+@pytest.mark.parametrize("case", [
+    "float_ragged_t", "all_negative_int", "prime_t_ragged_hw", "multirow",
+    "int16"])
+def test_movie_summary_edge_cases(rng, case):
+    """Edge cases the removed tiled kernel had to mask by hand, held against
+    the one reduction every path now uses: float input with an odd T (no
+    finfo.min padding may poison the sum), an all-negative int movie (no
+    zero may leak into the max), a prime T with ragged H and W, many rows,
+    and a plain int16 movie."""
+    movie = {
+        "float_ragged_t": lambda: rng.standard_normal((10, 8, 128))
+        .astype(np.float32) - 5.0,
+        "all_negative_int": lambda: rng.integers(-5000, -10, (7, 8, 130))
+        .astype(np.int16),
+        "prime_t_ragged_hw": lambda: rng.integers(-100, 3000, (31, 19, 137))
+        .astype(np.int16),
+        "multirow": lambda: rng.integers(0, 2000, (12, 40, 128))
+        .astype(np.int16),
+        "int16": lambda: rng.integers(-100, 3000, (37, 24, 40))
+        .astype(np.int16),
+    }[case]()
+    mean, mx = movie_summary(movie)
+    np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(mx), movie.max(0))
+
+
+def test_streaming_auto_backend_is_device(movie):
+    """backend='auto' folds on the device; 'host' stays an explicit choice,
+    and an unknown backend is rejected."""
+    assert StreamingSummary(movie.shape[1:], backend="auto").backend == "device"
+    assert StreamingSummary(movie.shape[1:], backend="host").backend == "host"
+    with pytest.raises(ValueError, match="backend"):
+        StreamingSummary(movie.shape[1:], backend="probe")
 
 
 def test_streaming_summary(movie):
@@ -58,7 +91,7 @@ def test_streaming_summary(movie):
 def test_streaming_ragged_tail_stable_shapes(movie):
     """The device path must fold a ragged tail chunk through the SAME
     compiled executable as the full chunks (zero-pad + in-kernel mask) —
-    a second mid-stream compile poisoned BENCH_r02's from_host metric."""
+    a second compile mid-stream would stall the stream."""
     from deepcalcium_tpu.ops.summary import (_streaming_device_update,
                                              _streaming_device_update_mean)
 
@@ -98,25 +131,12 @@ def test_streaming_all_negative_max_masked(rng):
     np.testing.assert_allclose(mean, movie.mean(0), rtol=1e-5)
 
 
-def test_auto_backend_reports_probe():
-    from deepcalcium_tpu.ops.summary import auto_backend
-
-    backend, mbps = auto_backend()
-    assert backend in ("host", "device")
-    assert mbps > 0
-    # CPU backend: transfers are free -> device.
-    if jax.devices()[0].platform.lower() == "cpu":
-        assert backend == "device" and mbps == float("inf")
-    ss = StreamingSummary((4, 8), backend="auto")
-    assert ss.backend == backend and ss.probe_mbps == mbps
-
-
 def test_sharded_summary_matches_single_device(rng):
     devices = np.array(jax.devices())
     mesh = Mesh(devices, ("data",))
     t = 8 * 6
     movie = rng.integers(0, 1000, size=(t, 16, 128)).astype(np.int16)
-    mean, mx = movie_summary_sharded(movie, mesh, axis="data", chunk=8)
+    mean, mx = movie_summary_sharded(movie, mesh, axis="data")
     np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-5)
     np.testing.assert_array_equal(np.asarray(mx), movie.max(0))
 
@@ -129,54 +149,25 @@ def test_sharded_summary_ragged_t(rng):
     n = devices.size
     for t in (8 * n + 3, n - 1, 5 * n + n - 1):
         movie = rng.integers(0, 1000, size=(t, 16, 128)).astype(np.int16)
-        mean, mx = movie_summary_sharded(movie, mesh, axis="data", chunk=8)
+        mean, mx = movie_summary_sharded(movie, mesh, axis="data")
         np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-5)
         np.testing.assert_array_equal(np.asarray(mx), movie.max(0))
 
 
-def test_pallas_float_movie_nondivisible_t(rng):
-    """Regression: float movies with T % chunk != 0 must not NaN (the old
-    finfo.min time-padding poisoned the sum)."""
-    movie = rng.standard_normal((10, 8, 128)).astype(np.float32) - 5.0
-    mean, mx = movie_summary_pallas(movie, chunk=4, interpret=True)
-    np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-4,
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(mx), movie.max(0))
-
-
-def test_pallas_all_negative_int_movie(rng):
-    """Max must survive spatial over-reads + ragged-tail masking even when
-    every value is negative."""
-    movie = rng.integers(-5000, -10, (7, 8, 130)).astype(np.int16)
-    mean, mx = movie_summary_pallas(movie, chunk=4, interpret=True)
-    np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(mx), movie.max(0))
-
-
-def test_pallas_prime_t_ragged_spatial(rng):
-    """Prime T (no usable chunk divisor -> masked tail) with H and W both
-    off-tile: every ragged edge at once, auto chunk/block selection."""
-    movie = rng.integers(-100, 3000, (31, 19, 137)).astype(np.int16)
-    mean, mx = movie_summary_pallas(movie, interpret=True)
-    np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(mx), movie.max(0))
-
-
-def test_pallas_multirow_blocks(rng):
-    """H spanning several row-blocks exercises the parallel grid dimension."""
-    movie = rng.integers(0, 2000, (12, 40, 128)).astype(np.int16)
-    mean, mx = movie_summary_pallas(movie, chunk=6, block_h=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(mx), movie.max(0))
-
-
 def test_movie_summary_fast_cpu_dispatch(movie):
-    """On the CPU test backend the dispatcher must take the XLA-scan path
-    and match the oracle (Pallas interpret would be pathologically slow)."""
-    assert jax.default_backend() == "cpu"
-    mean, mx = movie_summary_fast(movie)
+    """The fused movie evaluator reduces with the one summary path on every
+    backend: its mean output is bit-identical to movie_summary's."""
+    from deepcalcium_tpu.train.evaluate import make_movie_evaluator
+
+    def apply_fn(params, state, x, train=False, rng=None):
+        return jax.nn.sigmoid(x), state
+
+    ev = make_movie_evaluator(apply_fn, movie.shape, window=(32, 48),
+                              tta=False)
+    _, _, mean = ev({}, {}, movie)
+    np.testing.assert_array_equal(np.asarray(mean),
+                                  np.asarray(movie_summary(movie)[0]))
     np.testing.assert_allclose(np.asarray(mean), movie.mean(0), rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(mx), movie.max(0))
 
 
 def test_streaming_growing_chunk_stable_shapes(movie):
@@ -212,8 +203,7 @@ def test_streaming_mean_only_returns_none_max(movie):
 def test_sharded_summary_executable_reuse(rng):
     """Repeat movie_summary_sharded calls on same-shaped movies must reuse
     ONE compiled executable (module-level cache) — a fresh shard_map +
-    jit per call recompiles every time (~25-200 s on a remote-compile
-    service)."""
+    jit per call recompiles every time."""
     import jax
     from jax.sharding import Mesh
 
@@ -224,8 +214,8 @@ def test_sharded_summary_executable_reuse(rng):
     _sharded_summary_fn.cache_clear()
     m1 = rng.integers(0, 99, (16, 8, 8)).astype(np.int16)
     m2 = rng.integers(0, 99, (16, 8, 8)).astype(np.int16)
-    a1 = movie_summary_sharded(m1, mesh, use_pallas=False)
-    a2 = movie_summary_sharded(m2, mesh, use_pallas=False)
+    a1 = movie_summary_sharded(m1, mesh)
+    a2 = movie_summary_sharded(m2, mesh)
     info = _sharded_summary_fn.cache_info()
     assert info.misses == 1 and info.hits == 1, info
     np.testing.assert_allclose(np.asarray(a1[0]), m1.mean(0), rtol=1e-5)

@@ -195,8 +195,8 @@ def test_fit_fast_train(fixture_paths, tmp_path):
 
 def test_fit_with_stencil_mask_summary(fixture_paths, tmp_path):
     """The vectorized stencil mask summary as a production training-target
-    source through the mask_summary_func injection point (VERDICT r2 weak
-    #4): fit must run end-to-end, and on the fixtures' realistic densities
+    source through the mask_summary_func injection point: fit must run
+    end-to-end, and on the fixtures' realistic densities
     the stencil targets must stay within a small one-sided divergence of
     the exact walk."""
     import functools
@@ -223,14 +223,16 @@ def test_fit_with_stencil_mask_summary(fixture_paths, tmp_path):
 
 
 def test_fast_train_auto_logs_dispatch(fixture_paths, tmp_path, caplog):
-    """fit(fast_train='auto') silently changes the default training forward
-    (VERDICT r2 weak #7) — the dispatch must be self-documenting: one INFO
-    line when the W-packed step is selected, and none when the auto
-    conditions fail (non-%16 window)."""
+    """fit(fast_train='auto') keeps the plain training forward (the faster
+    gradient step on the H100), while the W-packed step stays reachable
+    through fast_train=True and announces itself with one INFO line. The
+    inference forward's 'auto' still picks the W-packed rewrite."""
     import functools
     import logging
 
     from deepcalcium_tpu.models import unet2d
+    from deepcalcium_tpu.models.unet2d_fast import (apply_fast_w,
+                                                    apply_fast_w_train)
 
     model = UNet2DSummary(cpdir=str(tmp_path / "cp"),
                           net_init_func=functools.partial(unet2d.init, nfb=4))
@@ -238,20 +240,19 @@ def test_fast_train_auto_logs_dispatch(fixture_paths, tmp_path, caplog):
         model.fit(fixture_paths, shape_trn=(48, 48), shape_val=(96, 96),
                   batch_size_trn=8, nb_steps_trn=2, nb_epochs=1, seed=3,
                   fast_train="auto")
-    assert any("W-packed training" in r.message for r in caplog.records)
-
-    caplog.clear()
-    # A custom net_apply_func (different identity from unet2d.apply) fails
-    # the auto conditions -> parity forward, no dispatch log.
-    model2 = UNet2DSummary(
-        cpdir=str(tmp_path / "cp2"),
-        net_init_func=functools.partial(unet2d.init, nfb=4),
-        net_apply_func=functools.partial(unet2d.apply, drp=0.0))
-    with caplog.at_level(logging.INFO):
-        model2.fit(fixture_paths, shape_trn=(48, 48), shape_val=(96, 96),
-                   batch_size_trn=8, nb_steps_trn=2, nb_epochs=1, seed=3,
-                   fast_train="auto")
     assert not any("W-packed" in r.message for r in caplog.records)
+
+    params, _ = unet2d.init(jax.random.PRNGKey(0), nfb=4)
+    shapes = ((48, 48), (96, 96))
+    assert model._resolve_apply_fn("auto", params, shapes,
+                                   train=True).func is unet2d.apply
+    assert model._resolve_apply_fn("auto", params, shapes,
+                                   train=False).func is apply_fast_w
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        fn = model._resolve_apply_fn(True, params, shapes, train=True)
+    assert fn.func is apply_fast_w_train
+    assert any("W-packed training" in r.message for r in caplog.records)
 
 
 def test_fit_weight_decay_and_rbg_prng(fixture_paths, tmp_path):
@@ -284,9 +285,9 @@ def test_fit_weight_decay_and_rbg_prng(fixture_paths, tmp_path):
 
 
 def test_fit_preset_perf(fixture_paths, tmp_path, caplog):
-    """fit(preset='perf') bundles the measured throughput levers (rbg PRNG
-    + K=4 scan dispatch), logs the RNG-stream deviation, and trains to
-    finite metrics; an unknown preset fails loudly (VERDICT r3 #2)."""
+    """fit(preset='perf') bundles the measured throughput lever (K=4 scan
+    dispatch; the PRNG stays as given), logs it, and trains to finite
+    metrics; an unknown preset fails loudly."""
     import functools
     import logging
 
@@ -303,7 +304,8 @@ def test_fit_preset_perf(fixture_paths, tmp_path, caplog):
     assert best is not None and os.path.exists(best)
     assert np.isfinite(history["loss"]).all()
     joined = " ".join(r.getMessage() for r in caplog.records)
-    assert "preset='perf'" in joined and "rbg" in joined
+    assert "preset='perf': steps_per_dispatch=4" in joined
+    assert "rbg" not in joined
     # nb_steps_trn=4 -> the preset's K=4 divides it exactly; with an
     # indivisible step count it must degrade to a legal K, not raise.
     history2, _ = model.fit(
@@ -580,7 +582,7 @@ def test_evaluate_movie_tiled_backend_threading(tiny_model):
 
 
 def test_predict_public_dispatch_oversized(tmp_path, tiny_model):
-    """VERDICT r4 weak #7: oversized fields of view must work through the
+    """Oversized fields of view must work through the
     PUBLIC UNet2DSummary.predict — mixed with in-window datasets in one
     call, with and without TTA — instead of raising in reflect_pad_to."""
     from deepcalcium_tpu.data.fixtures import make_neurons_hdf5 as mk

@@ -90,3 +90,33 @@ def test_predict_fast_matches_slow(tmp_path):
     # pixels sitting exactly at the 0.5 threshold on a random-init net —
     # tolerate a sub-percent fraction instead of demanding bit equality.
     assert np.mean(pf[0] != ps[0]) < 0.005
+
+
+def test_predict_is_thresholded_predict_proba(net, tmp_path):
+    """predict's decisions are predict_proba's probabilities thresholded,
+    at the full trace length (cropped back from the multiple-of-16 pad),
+    with in-memory dataset functions."""
+    import functools
+
+    from deepcalcium_tpu.models.unet_1d_segmentation import UNet1DSegmentation
+    from deepcalcium_tpu.train.checkpoints import save_checkpoint
+
+    params, state = net
+    ckpt = str(tmp_path / "m1d.ckpt")
+    save_checkpoint(ckpt, params, state)
+    traces = np.random.default_rng(4).standard_normal((5, 100)).astype(
+        np.float32)
+    model = UNet1DSegmentation(
+        cpdir=str(tmp_path / "cp"),
+        net_init_func=functools.partial(unet1d.init, nfb=4),
+        dataset_attrs_func=lambda p: {"name": p},
+        dataset_traces_func=lambda p: traces,
+        dataset_spikes_func=lambda p: None)
+    probs, names = model.predict_proba(["sp.0"], ckpt, batch=2)
+    assert names == ["sp.0"]
+    assert probs[0].shape == (5, 100) and probs[0].dtype == np.float32
+    assert ((probs[0] > 0) & (probs[0] < 1)).all()
+    thr = float(np.median(probs[0]))
+    dec, _ = model.predict(["sp.0"], ckpt, batch=2, threshold=thr)
+    assert dec[0].dtype == np.uint8
+    np.testing.assert_array_equal(dec[0], (probs[0] > thr).astype(np.uint8))

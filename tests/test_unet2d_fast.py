@@ -1,4 +1,4 @@
-"""apply_fast (MXU-shaped inference rewrite) vs the parity forward.
+"""apply_fast (channel-packed inference rewrite) vs the parity forward.
 
 The fast path — space-to-depth level 0 with exactly-transformed kernels,
 inference-BN folding, sigmoid-difference head — must be numerically
